@@ -34,8 +34,8 @@
  * built directly from explicit (b0, voicing, gain, amps) round-trip
  * exactly for every b0 (tests/test_imbe.py).
  */
-#ifndef RC_TPU_IMBE_H
-#define RC_TPU_IMBE_H
+#ifndef RC_IMBE_H
+#define RC_IMBE_H
 
 #include <stdint.h>
 
@@ -99,4 +99,4 @@ void imbe_scan_params(const imbe_params_t* p, uint8_t info[88]);
 #ifdef __cplusplus
 }
 #endif
-#endif /* RC_TPU_IMBE_H */
+#endif /* RC_IMBE_H */

@@ -47,8 +47,8 @@
  * Annex tables would tighten the quantizer contribution; the bound is
  * the honest statement of what the 4-constant reconstruction costs.
  * =================================================================== */
-#ifndef RC_TPU_IMBE_TABLES_H
-#define RC_TPU_IMBE_TABLES_H
+#ifndef RC_IMBE_TABLES_H
+#define RC_IMBE_TABLES_H
 
 /* [R] 1: 6-bit gain quantizer levels, log2 units. level[i] = (i-40)/4
  * (so index 40 = 0 dB frame level, ~1.5 dB steps). */
@@ -82,4 +82,4 @@ static inline double IMBE_HOC_WEIGHT(int j) {
  * wire format simple and loses nothing at the 74-K budget. */
 #define IMBE_MAX_COEF_BITS 8
 
-#endif /* RC_TPU_IMBE_TABLES_H */
+#endif /* RC_IMBE_TABLES_H */

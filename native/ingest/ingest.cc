@@ -8,7 +8,7 @@
 // payloads, 1.25 MB socket buffers). SDR drivers or network feeds push
 // int8/int16/float32 IQ into a single-producer single-consumer ring on
 // their own thread; the Python site runtime pops fixed-size blocks
-// already converted to the float32 re/im wire layout the TPU pipelines
+// already converted to the float32 re/im wire layout the device pipelines
 // ingest (SURVEY.md §7 hard part 5: ingest bandwidth, int8/int16 on the
 // wire). No locks on the hot path; conversion happens on the consumer
 // side at pop time so the ring stores the compact wire format.
@@ -189,7 +189,7 @@ static inline uint16_t f32_to_bf16(float f) {
 }
 
 // Consumer: pop exactly n_samples converted to bfloat16 re/im pairs —
-// the TPU pipelines' compute dtype. Lossless for the 8-bit SDR wire
+// half the bytes of float32. Lossless for the 8-bit SDR wire
 // formats (cu8/cs8 carry 8 significant bits; bf16 has an 8-bit
 // mantissa) and halves the host->device stream vs float32.
 int64_t rc_ring_pop_bf16(void* h, uint16_t* out, int64_t n_samples) {

@@ -1,8 +1,8 @@
-"""radiocapture_tpu — a TPU-native trunked-radio bulk-capture framework.
+"""radiocapture_tpu — a JAX trunked-radio bulk-capture framework.
 
 A from-scratch reimplementation of the capabilities of
 MattMills/radiocapture-rf (reference mounted at /root/reference), designed
-for JAX/XLA/Pallas on TPU rather than GNU Radio C++ blocks on CPU:
+for JAX/XLA on a GPU rather than GNU Radio C++ blocks on CPU:
 
 - ``ops``       batched DSP kernels: tap design, freq-xlating FIR banks,
                 polyphase channelizers, FM demod, resamplers, spectral scan

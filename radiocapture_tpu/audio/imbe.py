@@ -2,7 +2,7 @@
 
 Fills the op25 ``repeater.vocoder`` slot (reference
 logging_receiver.py:253, file_to_wav.py:92) as a host library — voice
-decode is per-call 8 kHz work, not a TPU kernel (SURVEY.md §7 hard part
+decode is per-call 8 kHz work, not a device kernel (SURVEY.md §7 hard part
 4). The library is built on demand with g++ the first time it is needed
 (cached under ``native/build/``).
 """

@@ -165,7 +165,7 @@ class CallRecorder:
         static-shape contract). The band-pass runs HERE, per active
         call at 8 kHz — exactly where the reference's per-call
         flowgraph ran it — instead of per slot at channel rate in the
-        batched pipeline (PERF.md §11)."""
+        batched pipeline."""
         from radiocapture_tpu.ops import resample as R
         import jax.numpy as jnp
         interp, decim = R.resample_ratio(self.channel_fs, self.AUDIO_RATE)

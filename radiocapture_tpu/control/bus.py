@@ -18,7 +18,7 @@ tooling ports over: ``/topic/raw_control/<uuid>``,
 ``/queue/call_management/call_complete``, ``/queue/metadata/site_update``.
 
 ``InProcBus`` is the default transport: every subsystem runs in one
-host process per TPU host (the reference needed Redis because each
+host process per capture host (the reference needed Redis because each
 channel/demod was its own OS process; here the hot path is on-device
 and the control plane is one asyncio-ish loop). ``RedisBus`` provides
 the same API over a real server for multi-host control planes, gated

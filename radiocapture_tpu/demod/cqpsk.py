@@ -1,6 +1,6 @@
 """CQPSK (P25 LSM) symbol recovery as a batched ``lax.scan`` kernel.
 
-TPU-native replacement for op25's ``repeater.gardner_costas_cc`` +
+Batched JAX replacement for op25's ``repeater.gardner_costas_cc`` +
 ``digital.diff_phasor_cc`` + ``blocks.complex_to_arg`` chain (reference
 p25_control_demod.py:136-168 and logging_receiver.py:278-333): joint
 Gardner symbol-timing recovery and carrier tracking on the complex
@@ -25,7 +25,7 @@ pull-in clamp.
 Timing is classic Gardner on interpolated mid-symbol samples
 (gain_mu=0.025, gain_omega=0.1*gain_mu^2, omega clamped to +/-2% of
 nominal — the reference's constructor constants). The per-sample
-sequential loop is a ``lax.scan`` whose per-step body is a wide VPU op
+sequential loop is a ``lax.scan`` whose per-step body is a wide vector op
 vmapped across channel slots (SURVEY.md §7 hard part 1); interpolation
 reuses the fsk4 kernel's polyphase windowed-sinc bank.
 """
@@ -110,11 +110,8 @@ def _interp_fixed(hist_re, hist_im, n0: int, frac):
     history sample with a COMPILE-TIME integer ``n0``: static window
     slice + polynomial taps, zero gathers.
 
-    Per-lane `take_along_axis`/table gathers lower to serial vector
-    gathers on the TPU VPU (the fsk4 kernel's measured ~36%-of-body
-    cost, demod/fsk4.py:_farrow_coeffs) — and this scan paid FOUR of
-    them per sample, which made the whole CQPSK pipeline ~370x slower
-    than C4FM (4.5 MS/s at the bench shape). The interpolation
+    The gather form (:func:`_interp`) pays four per-lane
+    `take_along_axis`/table gathers per sample. The interpolation
     positions' integer parts have tiny static ranges (p_sym ∈ [4,5);
     p_half spans ≤2 integer windows at ±2% omega), so each candidate
     window is a static slice and the caller selects between the few

@@ -1,7 +1,7 @@
 """Per-protocol receive engines (host side).
 
 Each engine consumes the sliced symbol stream of one channel slot (the
-batched TPU pipeline produces those for every active slot; see
+batched device pipeline produces those for every active slot; see
 frontend/pipeline.py) and runs the protocol state machine: framing,
 FEC/decode, lock/quality tracking, control-channel-hunt signaling, and
 event emission — the role of the reference's per-process Python

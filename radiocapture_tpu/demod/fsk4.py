@@ -1,11 +1,11 @@
 """C4FM / 4-FSK symbol recovery as a batched ``lax.scan`` kernel.
 
-TPU-native replacement for op25's ``fsk4_demod_ff`` (C++: joint fine-
+Batched JAX replacement for op25's ``fsk4_demod_ff`` (C++: joint fine-
 frequency + decision-directed symbol-timing tracking; used at
 p25_control_demod.py:135, logging_receiver.py:247). The per-sample
 sequential loop becomes a ``lax.scan`` whose carry holds the loop state,
 vmapped across channel slots so hundreds of control/voice channels track
-concurrently — the per-step work is a wide VPU op, not a scalar loop
+concurrently — the per-step work is one wide vector op, not a scalar loop
 (SURVEY.md §7 hard part 1).
 
 Contract: input is the FM discriminator output scaled so the four C4FM
@@ -63,8 +63,7 @@ def _interp_banks() -> tuple[np.ndarray, np.ndarray]:
 
 _VAL_BANK, _DVAL_BANK = _interp_banks()
 # Value and derivative taps fused side by side: the scan body then needs
-# ONE [NPHASES, 2*HIST] gather per sample instead of two — measured 26%
-# end-to-end pipeline speedup on v5e (gathers dominate the scan body).
+# ONE [NPHASES, 2*HIST] gather per sample instead of two.
 _COMB_BANK = np.concatenate([_VAL_BANK, _DVAL_BANK], axis=1)
 
 
@@ -72,9 +71,8 @@ def _farrow_coeffs(degree: int = 4) -> np.ndarray:
     """Farrow form of the interpolator: each of the 2·HIST combined taps
     as a ``degree``-order polynomial in the fractional phase.
 
-    A per-lane table gather (``comb_bank[phase]``) lowers to a slow
-    vector gather on the TPU VPU — measured ~36% of the whole scan body.
-    Evaluating the taps as polynomials is pure FMA work and is *more*
+    Evaluating the taps as polynomials instead of a per-lane table
+    gather (``comb_bank[phase]``) is pure FMA work and is *more*
     accurate than the 128-phase table (max fit error ~2e-3 vs the
     1/128-phase quantization). Returns [degree+1, 2·HIST], highest
     power first (Horner order).
@@ -117,14 +115,14 @@ def fsk4_demod(state: Fsk4State, x: jax.Array, samp_rate: float,
 
     ``levels`` selects the decision alphabet: 4-level C4FM by default;
     (-1, 1) turns this into the binary clock-recovery kernel the EDACS
-    (9600 Bd) and Motorola (3600 Bd) FSK paths share — the TPU-native
+    (9600 Bd) and Motorola (3600 Bd) FSK paths share — the batched
     stand-in for GNU Radio's ``clock_recovery_mm_ff``
     (edacs_control_demod.py:85, moto_control_demod.py:113).
     """
     step = jnp.float32(symbol_rate / samp_rate)
     lv = np.asarray(levels, np.float32)
     # Uniformly spaced alphabets (all of C4FM/EDACS/Moto) decide the
-    # nearest level arithmetically — ~6 VPU ops vs ~15 for the
+    # nearest level arithmetically — ~6 vector ops vs ~15 for the
     # distance/argmin form, identical result away from the measure-zero
     # midpoint ties.
     spacing = np.diff(lv)
@@ -135,17 +133,15 @@ def fsk4_demod(state: Fsk4State, x: jax.Array, samp_rate: float,
     batch = x.shape[:-1]
     # Farrow coefficients laid out [deg+1, 2·HIST, 1...] so every scan-
     # body op broadcasts over the *minor* batch dims — the tap axis stays
-    # major and each vector op runs the full lane width (a [..., HIST]
-    # minor tap axis pads 8 values into 128 lanes).
+    # major and each vector op runs over the whole batch.
     far = {4: _FARROW, 3: _FARROW3}.get(farrow_degree)
     if far is None:
         far = _farrow_coeffs(farrow_degree)
     cf = jnp.asarray(far).reshape(far.shape + (1,) * len(batch))
-    # The scan body is VMEM-bandwidth-bound on its [2·HIST, ...batch]
-    # intermediates (PERF.md §6); track_dtype=bfloat16 halves that
-    # traffic. Interp products round at ~2^-9 of the ±4 symbol span —
-    # far under the half-level slicer margin — while the loop carries
-    # (clock/ff) and the emitted y stay float32.
+    # track_dtype=bfloat16 halves the bytes of the scan body's
+    # [2·HIST, ...batch] intermediates. Interp products round at ~2^-9
+    # of the ±4 symbol span — far under the half-level slicer margin —
+    # while the loop carries (clock/ff) and the emitted y stay float32.
     tdt = track_dtype or jnp.float32
     cf = cf.astype(tdt)
 

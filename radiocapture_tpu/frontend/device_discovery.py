@@ -8,7 +8,7 @@ cluster allocator can map dongles to hosts (README.md:5 autodiscovery).
 
 Here the same enumeration runs when librtlsdr is present, and file/
 synthetic sources declared in the deployment config are reported the
-same way — the TPU deployment's "devices" are usually IQ feeds, not
+same way — a capture host's "devices" are usually IQ feeds, not
 local USB dongles.
 """
 

@@ -7,7 +7,7 @@ transports — gr-osmosdr/UHD callbacks, ``zeromq.pub_sink`` fan-out
 owns that sample path: producers (an SDR driver thread, a UDP feed, or a
 replay thread) push compact wire-format IQ (int8/int16/float32) into a
 lock-free ring; :class:`IngestRing` pops fixed-size blocks converted to
-the float32 re/im layout the TPU pipelines take, so the Python loop
+the float32 re/im layout the pipelines take, so the Python loop
 never touches per-sample data. Overflow drops the incoming excess (the
 SDR must never block, and the producer never mutates the consumer
 cursor, so pops can't tear) and is counted, mirroring a full kernel
@@ -134,11 +134,9 @@ class IngestRing:
         return out if got == n else None
 
     def pop_bf16(self, n: int) -> np.ndarray | None:
-        """Consumer side: [n, 2] bfloat16 re/im — the TPU pipelines'
-        compute dtype. Lossless for cu8/cs8 wire formats (8 significant
-        bits vs bf16's 8-bit mantissa) and halves the host->device
-        stream; measured +3.7% end-to-end at the bench shape
-        (PERF.md §6)."""
+        """Consumer side: [n, 2] bfloat16 re/im. Lossless for cu8/cs8
+        wire formats (8 significant bits vs bf16's 8-bit mantissa) and
+        halves the host->device stream."""
         import ml_dtypes
         out = np.empty((n, 2), ml_dtypes.bfloat16)
         got = self._lib.rc_ring_pop_bf16(
@@ -157,7 +155,7 @@ class IngestRing:
         """A SiteRuntime block provider. ``strict`` returns None when the
         ring can't fill a block (skip the step); non-strict zero-fills —
         live capture keeps real-time cadence through dropouts. ``bf16``
-        delivers blocks in the TPU compute dtype (see :meth:`pop_bf16`);
+        delivers bfloat16 blocks (see :meth:`pop_bf16`);
         pass ``"auto"`` to enable it only for wire formats where the
         conversion is lossless (8-bit cu8/cs8 — bf16 has an 8-bit
         mantissa, so ≥12-bit cs16/cf32 sources would silently lose

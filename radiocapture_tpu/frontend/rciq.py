@@ -1,8 +1,8 @@
 """rciq: the driver-host IQ transport for USRP / bladeRF sources.
 
 The reference opens USRPs and bladeRFs in-process through UHD /
-gr-osmosdr (rc_frontend/receiver.py:88-169). TPU capture hosts have no
-USB/PCIe SDR bus, so those radios live on a **driver host** — any box
+gr-osmosdr (rc_frontend/receiver.py:88-169). GPU capture hosts need no
+SDR drivers, so those radios live on a **driver host** — any box
 that can run UHD or SoapySDR — and stream to the capture host over a
 deliberately tiny TCP protocol, the ≥12-bit analog of the rtl_tcp path
 (`frontend/rtl_tcp.py`; rtl_tcp itself only carries 8-bit samples):

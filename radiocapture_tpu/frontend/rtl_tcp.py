@@ -3,7 +3,7 @@
 The reference opens RTL-SDR dongles in-process through gr-osmosdr
 (rc_frontend/receiver.py:170-204: ``osmosdr.source('rtl=N')`` with
 sample rate, center frequency, per-dongle ppm correction, and gain
-settings).  The TPU deployment keeps dongles on whatever host has the
+settings).  This deployment keeps dongles on whatever host has the
 USB bus and streams them over the standard **rtl_tcp** protocol — one
 ``rtl_tcp`` daemon per dongle (deploy/rtl-tcp@.service, the analog of
 the reference's ``radiocapture-channelizer@.service`` template) — into
@@ -186,7 +186,7 @@ class RtlTcpSource:
     def provider(self, strict: bool = False, bf16: bool = False):
         """SiteRuntime block provider (zero-fills through dropouts by
         default — live capture keeps real-time cadence). ``bf16``
-        delivers blocks in the TPU compute dtype (IngestRing.pop_bf16:
+        delivers bfloat16 blocks (IngestRing.pop_bf16:
         lossless for the cu8 wire format)."""
         return self.ring.provider(strict=strict, bf16=bf16)
 

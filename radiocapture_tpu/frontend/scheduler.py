@@ -4,7 +4,7 @@ The reference's frontend serves ``create/release/hb/offset`` RPCs by
 spawning or retuning one GNU Radio flowgraph per channel
 (rc_frontend/receiver.py:503-700, 282-341) with a 10 s idle-reuse pool
 (receiver.py:51,307-341,635-649) and 5 s client-heartbeat reaping
-(receiver.py:651-680). The TPU pipeline instead processes a fixed
+(receiver.py:651-680). The batched pipeline instead processes a fixed
 ``num_slots`` batch every block (frontend/pipeline.py), so channel
 create/release becomes *slot allocation*: an allocated slot's offset
 goes live in the next block's ``offsets_norm`` array; a released slot

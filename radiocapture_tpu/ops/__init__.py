@@ -1,8 +1,8 @@
-"""Batched DSP kernels (pure JAX + Pallas), the framework's compute core.
+"""Batched DSP kernels (pure JAX), the framework's compute core.
 
 Every op is a pure function over ``(state, samples) -> (state, out)`` so an
 unbounded stream is processed as a sequence of fixed-shape blocks with
-carried state — the TPU-native replacement for GNU Radio's per-block
+carried state — the batched replacement for GNU Radio's per-block
 C++ history buffers (reference: gr scheduler, SURVEY.md §5.7).
 """
 

@@ -3,8 +3,8 @@
 Replaces the reference's per-channel GNU Radio processes:
 
 - ``XlatBank``: N channel *slots* extracted from one wideband stream by a
-  bank of frequency-translating decimating FIRs evaluated as one conv →
-  matmul on the MXU. This is the TPU-native form of "xlat" mode
+  bank of frequency-translating decimating FIRs evaluated as P polyphase
+  matrix products. This is the batched form of "xlat" mode
   (reference rc_frontend/receiver.py:282-341 + rc_frontend/channel.py:29-38)
   where the reference spawns one ``freq_xlating_fir_filter_ccc`` flowgraph
   per requested channel. Slot offsets are runtime data, so channel
@@ -12,12 +12,11 @@ Replaces the reference's per-channel GNU Radio processes:
 
 - ``PfbChannelizer``: critically-sampled M-channel polyphase FFT
   channelizer — "pfb" mode (reference rc_frontend/receiver.py:242-261,
-  ``pfb.channelizer_ccf``). Windowing is a dense einsum (MXU), followed by
-  a batched FFT across the channel axis.
+  ``pfb.channelizer_ccf``). Windowing is a dense einsum, followed by a
+  batched FFT across the channel axis.
 
 Both are ``(state, block) -> (state, channels)`` streaming ops with
-static shapes; see ops/pallas_channelizer.py for the fused Pallas kernel
-variant of XlatBank.
+static shapes.
 """
 
 from __future__ import annotations
@@ -47,29 +46,13 @@ class XlatBank:
     12.5 kHz at channel_rate×2 (p25_control_demod.py:81,106).
     """
 
-    # Fused-kernel tuning knobs (see ops.pallas_channelizer): K-chunked
-    # window-build/dot interleave and bfloat16 plane outputs (halves the
-    # kernel-output and transpose-pass HBM traffic; the complex path
-    # regains float32 at materialization).
-    # Measured on v5e at the bench shape (tools/bench_ab.py, interleaved
-    # medians): bf16 outputs −3.7% full-step; K-chunked accumulation
-    # (chunk=5) was neutral-to-worse and stays off.
-    pallas_chunk: int = 0
-    pallas_out_bf16: bool = True
-
     def __init__(self, num_slots: int, decim: int, taps: np.ndarray):
-        # Pad taps to a multiple of decim so the strided conv decomposes
-        # into P polyphase frames -> one [N, P·D] × [P·D, C] matmul (the
-        # MXU path; a direct stride-96, K≈2800 conv lowers terribly on
-        # TPU).
+        # Pad taps to a multiple of decim: P = K / D polyphase branches.
         pad = (-len(taps)) % decim
         if pad:
             taps = np.concatenate([taps, np.zeros(pad, taps.dtype)])
         self.num_slots = num_slots
         self.decim = decim
-        # Keep taps as host numpy: they embed as jaxpr constants at trace
-        # time without a device round trip (device->host copies of
-        # closure constants are restricted on some TPU transports).
         self.taps = np.asarray(taps, np.float32)
         self.ntaps = len(taps)
         self.p = self.ntaps // decim
@@ -85,8 +68,8 @@ class XlatBank:
         only 20 dB (rc_frontend/channel.py:33 low_pass_2(..,
         channel_rate/2, channel_rate/2, 20)), so this keeps 40 dB more
         adjacent-channel rejection at the adjacent carrier while costing
-        half the taps of a quarter-channel transition (the bank matmul's
-        K dimension is the framework's single hottest axis)."""
+        half the taps of a quarter-channel transition (the bank's K
+        dimension is the framework's single hottest axis)."""
         out_rate = out_per_channel_rate or 2.0 * channel_rate
         decim = int(round(samp_rate / out_rate))
         taps = _taps.low_pass_2(1.0, samp_rate, channel_rate / 2.0,
@@ -113,7 +96,6 @@ class XlatBank:
         # slot count from the offsets themselves: sharded callers pass a
         # per-device slot subset (parallel/mesh.py)
         c = offsets_norm.shape[0]
-        p = self.p
         kk = jnp.arange(k, dtype=jnp.float32)
         # Per-slot modulated taps g[c,k] = h[k] e^{j 2π f_c k}, reversed to
         # correlation form: y[c,n] = Σ_k grev[c,k] · z[nD + k].
@@ -122,45 +104,28 @@ class XlatBank:
         grev = g[:, ::-1]
         z = jnp.concatenate([state.history, x])          # [T + K-1]
         n_out = x.shape[0] // d
-        from radiocapture_tpu.ops import pallas_channelizer as _pk
-        if _pk.pallas_supported(n_out, p, d, c):
-            # Polyphase framing: z[nD + pD + dd] for n∈[N), p∈[P), dd∈[D)
-            # — P shifted row-views of the [N+P-1, D] reshape, no gather.
-            # Fused VMEM-resident accumulation of the P shifted
-            # sub-matmuls — reads every input element from HBM once
-            # instead of materializing the N×K window matrix.
-            zf = z[: n_out * d + k - d].reshape(n_out + p - 1, d)
-            grev_t = grev.T                              # [K, C]
-            y_re, y_im = _pk.bank_matmul_pallas(
-                jnp.real(zf), jnp.imag(zf),
-                jnp.real(grev_t).astype(jnp.float32),
-                jnp.imag(grev_t).astype(jnp.float32), p, d)
-            y = jax.lax.complex(y_re, y_im).T            # [C, N]
-        elif jax.default_backend() == "tpu":
-            zf = z[: n_out * d + k - d].reshape(n_out + p - 1, d)
-            w = jnp.concatenate([zf[q: q + n_out] for q in range(p)],
-                                axis=1)                  # [N, P·D] = [N, K]
-            # One complex matmul on the MXU: [N, K] x [K, C].
-            y = (w @ grev.T).T.astype(jnp.complex64)     # [C, N]
-        else:
-            # CPU/GPU: strided cross-correlation. Unlike a BLAS matmul
-            # (whose row-remainder micro-kernels make the final few
-            # outputs depend on the total block length), XLA's conv
-            # computes each output window identically regardless of
-            # position or length — bit-exact across block splits, which
-            # the sequence-parallel equivalence tests assert — and it
-            # measures ~5x faster than the window matmul on CPU.
-            z2 = jnp.stack([z.real, z.imag])[None]       # [1, 2, T+K-1]
-            gr = jnp.real(grev).astype(jnp.float32)
-            gi = jnp.imag(grev).astype(jnp.float32)
-            kern = jnp.concatenate(
-                [jnp.stack([gr, -gi], axis=1),            # re rows
-                 jnp.stack([gi, gr], axis=1)], axis=0)    # im rows [2C,2,K]
-            out = jax.lax.conv_general_dilated(
-                z2.astype(jnp.float32), kern, window_strides=(d,),
-                padding="VALID",
-                dimension_numbers=("NCH", "OIH", "NCH"))[0]  # [2C, N]
-            y = jax.lax.complex(out[:c], out[c:])        # [C, N]
+        p = self.p
+        # Polyphase form: frame z into rows of D samples, re/im
+        # interleaved ([N+P-1, 2D]); row n+q is branch q of output n, so
+        # y = Σ_q frame[q : q+N] @ G[q] — P matrix products against a
+        # real [2D, 2C] tap block per branch (row 2j multiplies Re z,
+        # row 2j+1 Im z; columns [re | im] outputs). No window matrix is
+        # materialized.
+        zr = jnp.stack([jnp.real(z), jnp.imag(z)], axis=-1)
+        zf = zr[: (n_out + p - 1) * d].reshape(n_out + p - 1, 2 * d)
+        gr = jnp.real(grev).T.reshape(p, d, c)
+        gi = jnp.imag(grev).T.reshape(p, d, c)
+        g2 = jnp.concatenate(
+            [jnp.stack([gr, -gi], axis=2).reshape(p, 2 * d, c),
+             jnp.stack([gi, gr], axis=2).reshape(p, 2 * d, c)],
+            axis=-1).astype(jnp.float32)                 # [P, 2D, 2C]
+        # DEFAULT precision: TF32 operands with f32 accumulation on the
+        # GPU, ~3e-4 rel-RMS against a float64 reference at production
+        # width — inside the 2e-3 budget (chip_smoke.py's bank phase).
+        acc = sum(jnp.dot(zf[q:q + n_out], g2[q],
+                          precision=jax.lax.Precision.DEFAULT)
+                  for q in range(p))                     # [N, 2C]
+        y = jax.lax.complex(acc[:, :c], acc[:, c:]).T    # [C, N]
         # Per-slot mixer phase ramp, exact uint32 fixed-point (see
         # ops.fir._phase_step_u32): bit-exact across block splits.
         step = _phase_step_u32(offsets_norm, d)           # [C] uint32
@@ -169,66 +134,6 @@ class XlatBank:
         y = y * jnp.exp(1j * _u32_to_angle(ramp))
         new_phase = state.phase + step * jnp.uint32(n_out)
         new_hist = z[z.shape[0] - (k - 1):]
-        return XlatBankState(history=new_hist, phase=new_phase), y
-
-    def call_wire(self, state: XlatBankState, x2: jax.Array,
-                  offsets_norm: jax.Array
-                  ) -> tuple[XlatBankState, jax.Array]:
-        """Same contract as ``__call__`` but takes the raw ``[T, 2]``
-        float32 re/im wire layout.
-
-        On TPU this routes through the fully fused Pallas kernel
-        (ops.pallas_channelizer.bank_fused_pallas): the interleaved
-        input rows feed the MXU directly (the tap matrix absorbs the
-        complex arithmetic) and the mixer rotation happens in VMEM —
-        eliminating the wideband-rate complex materialization,
-        deinterleave, and per-sample rotation passes, which cost more
-        than the matmul itself at production shapes. Elsewhere it
-        falls back to the complex path bit-for-bit."""
-        from radiocapture_tpu.ops import pallas_channelizer as _pk
-        k, d, c, p = self.ntaps, self.decim, self.num_slots, self.p
-        n_out = x2.shape[0] // d
-        if not _pk.pallas_supported(n_out, p, d, c):
-            x2f = x2.astype(jnp.float32)
-            x = jax.lax.complex(x2f[..., 0], x2f[..., 1])
-            return self(state, x, offsets_norm)
-        # Modulated taps g[c,k] = h[k]·e^{j2πf_c k} with the phasor
-        # factorized e^{j2πf_c(qD+j)} = e^{j2πf_c qD}·e^{j2πf_c j}:
-        # C·(P+D) sin/cos pairs instead of C·K — the full-width
-        # transcendental build measured ~as much as the bank matmul
-        # itself once vmapped over sources.
-        two_pi = jnp.float32(2.0 * jnp.pi)
-        ac = two_pi * offsets_norm[:, None] * (
-            jnp.arange(p, dtype=jnp.float32) * d)[None, :]      # [C, P]
-        af = two_pi * offsets_norm[:, None] * jnp.arange(
-            d, dtype=jnp.float32)[None, :]                      # [C, D]
-        ph = (jnp.exp(1j * ac)[:, :, None]
-              * jnp.exp(1j * af)[:, None, :])                   # [C, P, D]
-        g = (self.taps.reshape(p, d)[None, :, :] * ph).reshape(c, k)
-        grev = g[:, ::-1].T                                     # [K, C]
-        g2 = _pk.fused_tap_matrix(
-            jnp.real(grev).astype(jnp.float32),
-            jnp.imag(grev).astype(jnp.float32), p, d)
-        step = _phase_step_u32(offsets_norm, d)
-        rot0, pows = _pk.fused_rotation_tables(state.phase, step, n_out)
-        # x2 may arrive bfloat16 (the SDR ingest wire layout: RTL-class
-        # sources carry 8 significant bits, bf16 is lossless for them
-        # and halves the host->device stream). History state stays
-        # complex64; the kernel computes in bf16 either way.
-        hist2 = jnp.stack([jnp.real(state.history),
-                           jnp.imag(state.history)],
-                          axis=-1).astype(x2.dtype)
-        z2 = jnp.concatenate([hist2, x2], axis=0)     # [T + K - 1, 2]
-        rows = n_out + p - 1
-        zf2 = z2[: rows * d].reshape(rows, 2 * d)     # free view
-        y_re, y_im = _pk.bank_fused_pallas(
-            zf2, g2, rot0, pows, p, d,
-            chunk=self.pallas_chunk, out_bf16=self.pallas_out_bf16)
-        y = jax.lax.complex(y_re[:, :n_out].astype(jnp.float32),
-                            y_im[:, :n_out].astype(jnp.float32))
-        new_phase = state.phase + step * jnp.uint32(n_out)
-        nh = z2[z2.shape[0] - (k - 1):].astype(jnp.float32)
-        new_hist = jax.lax.complex(nh[:, 0], nh[:, 1])
         return XlatBankState(history=new_hist, phase=new_phase), y
 
 
@@ -308,7 +213,7 @@ class PfbXlatBankState(NamedTuple):
 
 class PfbXlatBank:
     """'pfb' frontend mode: coarse PFB into ``bin_rate`` bins, then a
-    per-slot fine freq-xlating FIR from each slot's bin — the TPU-native
+    per-slot fine freq-xlating FIR from each slot's bin — the batched
     form of the reference's two-stage pfb path where ``channelizer_ccf``
     bins at 400 kS/s feed per-channel xlat flowgraphs at ``pfb_offset =
     offset - chan·pfb_samp_rate`` (rc_frontend/receiver.py:242-261,

@@ -7,7 +7,7 @@ block plus per-slot band extraction, instead of a [T/D, K] x [K, C]
 matmul:
 
     z = hist(V) | x(T)            N_fft = V + T = D * N_blk
-    X = FFT(z)                                 (four-step, MXU+pow2)
+    X = FFT(z)                    (four-step: pow2 FFT + small DFT)
     per slot c:  b_c = round(f_c * N_fft)      (integer-bin center)
       Y_c[k''] = X[(b_c + k'') mod N_fft] * Hband[k'']   (N_blk bins)
       w_c      = IFFT_{N_blk}(Y_c)
@@ -30,14 +30,13 @@ tolerances. The filter is also centered on the nearest FFT bin
 (≤ fs/(2*N_fft) ≈ 5 Hz at production shapes) — negligible against the
 6.25 kHz passband.
 
-Why: at production shapes the xlat matmul reads ~[T/D, K=2100+] windows
-per slot bank and dominates the whole capture pipeline (measured
-15.3 ms of a 16.75 ms step at 64 sources x 64 slots); the FFT form does
-O(T log T) + O(C * N_blk) work and maps onto pow2 FFT + one tiny DFT
-matmul. Replaces the same reference component (per-channel
-``freq_xlating_fir_filter_ccc``, rc_frontend/channel.py:29-38) — this
-is the "F-engine" architecture of the radio-astronomy channelizers the
-design survey points at (SURVEY.md §2.3, PAPERS.md).
+Why: the xlat bank does O(T/D * K * C) multiply-adds per block
+(K = 1440 taps at 2.4 MS/s); the FFT form does O(T log T) + O(C * N_blk)
+work and maps onto pow2 FFT + one tiny DFT matmul. Replaces the same
+reference component (per-channel ``freq_xlating_fir_filter_ccc``,
+rc_frontend/channel.py:29-38) — this is the "F-engine" architecture of
+the radio-astronomy channelizers the design survey points at (SURVEY.md
+§2.3, PAPERS.md).
 """
 
 from __future__ import annotations
@@ -202,11 +201,3 @@ class FftXlatBank:
             outs.append(y)
         y = outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=-1)
         return FftXlatBankState(history=hist, phase=phase), y
-
-    def call_wire(self, state: FftXlatBankState, x2: jax.Array,
-                  offsets_norm: jax.Array
-                  ) -> tuple[FftXlatBankState, jax.Array]:
-        """[T, 2] float32 re/im wire layout (the FFT consumes complex
-        directly; one complexify pass at wideband rate)."""
-        return self(state, jax.lax.complex(x2[..., 0], x2[..., 1]),
-                    offsets_norm)

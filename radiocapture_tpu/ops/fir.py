@@ -1,6 +1,6 @@
 """Streaming FIR / frequency-translating FIR kernels.
 
-TPU-native replacement for GNU Radio's ``freq_xlating_fir_filter_ccc``
+Batched JAX replacement for GNU Radio's ``freq_xlating_fir_filter_ccc``
 (reference: rc_frontend/channel.py:35, p25_control_demod.py:108) and
 ``fir_filter_fff``. A stream is processed in fixed-shape blocks; the last
 ``ntaps-1`` input samples and the mixer phase are carried in an explicit
@@ -8,7 +8,7 @@ state pytree so block boundaries are seamless (the role GNU Radio's C++
 scheduler history plays; SURVEY.md §5.7).
 
 Convolution is expressed through ``lax.conv_general_dilated`` with re/im
-stacked as conv features so XLA lowers it onto the MXU as a matmul.
+stacked as conv features.
 """
 
 from __future__ import annotations

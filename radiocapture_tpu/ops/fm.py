@@ -1,11 +1,11 @@
 """FM demodulation kernels: quadrature discriminator, de-emphasis, NBFM.
 
-TPU-native equivalents of the reference's ``analog.quadrature_demod_cf``
+Batched JAX equivalents of the reference's ``analog.quadrature_demod_cf``
 (p25_control_demod.py:121, edacs_control_demod.py:84,
 moto_control_demod.py:105) and ``analog.fm_demod_cf`` with 75 µs
 de-emphasis (logging_receiver.py:214, file_to_wav.py:51).
 
-The discriminator is elementwise (VPU); the one-pole de-emphasis IIR is a
+The discriminator is elementwise; the one-pole de-emphasis IIR is a
 linear recurrence evaluated with ``lax.associative_scan`` so it costs
 O(log n) depth instead of a per-sample loop.
 """

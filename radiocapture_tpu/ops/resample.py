@@ -1,6 +1,6 @@
 """Polyphase rational resampler (streaming, static-shape).
 
-TPU-native equivalent of ``filter.rational_resampler_fff`` used by the
+Batched JAX equivalent of ``filter.rational_resampler_fff`` used by the
 reference to reach 8 kHz / 48 kHz audio rates
 (logging_receiver.py:216-221, 338). The polyphase decomposition is
 evaluated as one dense ``[n_out, kp] @ [kp]``-per-phase contraction with

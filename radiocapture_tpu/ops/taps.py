@@ -5,7 +5,7 @@ Provides the tap families the reference obtains from GNU Radio's
 (reference: rc_frontend/channel.py:33, p25_control_demod.py:107,
 logging_receiver.py:215, rc_frontend/receiver.py:249-261). Taps are
 computed on the host with scipy and baked into jitted kernels as
-constants — tap design is never a TPU op.
+constants — tap design is never a device op.
 """
 
 from __future__ import annotations

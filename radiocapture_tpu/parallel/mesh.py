@@ -2,7 +2,7 @@
 
 The reference scales by processes: one per dongle, one per system demod,
 one per call recorder, across hosts glued by ZMQ/Redis (SURVEY.md §2.2).
-The TPU-native scaling axes are a 2-D ``jax.sharding.Mesh``:
+The scaling axes here are a 2-D ``jax.sharding.Mesh``:
 
 - ``source`` axis — data parallel over wideband sources (the reference's
   "one process per dongle", rc_frontend/receiver.py:67-70). Each source's

@@ -10,7 +10,9 @@ process per demod/call-manager/recorder joined by ZMQ/Redis
 steps per source per block, and the control plane is ordinary objects on
 an in-proc (or Redis-backed) bus. Per-source OS workers can still be
 spawned via :class:`radiocapture_tpu.control.overseer.Supervisor` for
-multi-host deployments.
+multi-host deployments; only one process per GPU may run pipelines (a
+JAX process reserves most of the card's memory), so give each extra
+worker its own card with ``CUDA_VISIBLE_DEVICES``.
 
 Usage::
 
@@ -186,20 +188,12 @@ class SiteRuntime:
             now_fn=lambda: self.now())
         # Pipelines are GROUPED: all sources sharing a sample rate that
         # need the same symbol class step through ONE jitted vmapped
-        # call with a leading source-batch axis — the bench's batching
-        # (bench.py: 128 sources per call) in the production loop. A
-        # per-source loop of batch-1 jit calls cannot hold the
-        # real-time deadline at scale on a TPU host: the fsk4/Gardner
-        # tracking scans are LATENCY-bound (~6.6 ms per call at any
-        # batch width, PERF.md §6), so N sources × 2 classes of
-        # batch-1 calls cost ≥ 13·N ms per 100 ms block — the batched
-        # call amortizes one scan latency across every source (128
-        # sources in ~18.5 ms, PERF.md §12 for the measured
-        # environment caveats). Groups: {gkey: {"pipe", "srcs", "cls",
-        # "rate"}}; gkey = (rate, cls) for the eager classes, (rate,
-        # cls, src) for lazily provisioned singletons (a TDMA voice
-        # class runs only on the source whose call needs it, same cost
-        # model as the old per-source layout).
+        # call with a leading source-batch axis — one dispatch and one
+        # sequential tracking scan per class per block instead of one
+        # per source. Groups: {gkey: {"pipe", "srcs", "cls", "rate"}};
+        # gkey = (rate, cls) for the eager classes, (rate, cls, src) for
+        # lazily provisioned singletons (a TDMA voice class runs only on
+        # the source whose call needs it).
         self.groups: dict[tuple, dict] = {}
         self.pipe_state: dict[tuple, object] = {}
         self._gstep: dict[tuple, object] = {}
@@ -231,8 +225,7 @@ class SiteRuntime:
             for (rate, cls), srcs in sorted(by_cls.items(), key=str):
                 self._make_group((rate, cls), cls, sorted(set(srcs)))
         else:
-            # per-source singleton groups: the pre-grouping cost model,
-            # for CPU-only multi-source offline decode (rxconfig knob)
+            # per-source singleton groups (rxconfig knob)
             for src_idx, cls in sorted(needed, key=str):
                 rate = int(cfg.sources[src_idx].samp_rate)
                 self._make_group((rate, cls, src_idx), cls, [src_idx])
@@ -746,4 +739,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from radiocapture_tpu.utils import compile_cache
+    compile_cache.enable()
     main()

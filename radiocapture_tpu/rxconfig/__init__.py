@@ -77,17 +77,14 @@ class RcConfig:
     blacklists: dict = field(default_factory=dict)
     scan_mode: bool = False
     audio_dir: str = "audio"
-    # TPU-native additions: slot-pool sizing for the batched pipelines.
+    # Additions for the batched pipelines: slot-pool sizing per source.
     num_slots_per_source: int = 64
     block_seconds: float = 0.1    # streaming block length
-    # Batch same-rate sources into grouped vmapped pipeline steps
-    # (required to hold real time on TPU hosts — the tracking scans are
-    # latency-bound per call, PERF.md §12). CPU-only offline decode of
-    # multi-source configs may set False: with no MXU to underfeed the
-    # per-source form measured ~1.3x faster there.
+    # Batch same-rate sources into grouped vmapped pipeline steps; False
+    # steps each source on its own.
     group_sources: bool = True
     # Live-SDR blocks ship host->device as bfloat16 re/im (half the
-    # float32 stream; PERF.md §6). Applied per source only where the
+    # float32 stream). Applied per source only where the
     # wire format makes it lossless (8-bit cu8/cs8, e.g. rtl_tcp) —
     # bf16's 8-bit mantissa would truncate 12-16-bit cs16/cf32 sources,
     # so those stay float32 regardless of this knob. File replay is

@@ -116,4 +116,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from radiocapture_tpu.utils import compile_cache
+    compile_cache.enable()
     main()

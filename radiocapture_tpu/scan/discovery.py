@@ -1,6 +1,6 @@
 """System discovery: trial-demodulate every spectral peak in one batch.
 
-TPU-native replacement for the reference's ``fft_peak_detection.py:68-106``
+Batched JAX replacement for the reference's ``fft_peak_detection.py:68-106``
 (spawn one ``p25_control_demod`` OS process per detected peak, wait 30 s,
 log which ones locked, measure frequency offsets) and the brute-force
 band scanner ``ov_scan.py:34-111`` (40 parallel demods at ±offsets around

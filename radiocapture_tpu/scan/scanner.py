@@ -1,7 +1,7 @@
 """Conventional ("scanner") capture: squelch-probe many channels at once,
 open a recording on carrier detect.
 
-TPU-native replacement for the reference's ``scanning_receiver.py``
+Batched JAX replacement for the reference's ``scanning_receiver.py``
 (alpha-quality conventional capture, README.md:11): there, one
 ``gr.hier_block2`` per channel runs ``simple_squelch_cc(threshold, 0.1)``
 into a null sink, a poll thread checks ``squelch.unmuted()`` every 10 ms

@@ -1,12 +1,12 @@
 """Batched wideband spectrum measurement + channel-peak detection.
 
-TPU-native replacement for the reference's scan front half:
+Batched JAX replacement for the reference's scan front half:
 
 - ``fft_vector.py:37-60``: stream_to_vector(16384) → fft_vcc(blackman-
   harris, shifted) → mag² → nlog10 → moving_average(100 frames) →
   head/skiphead so exactly ONE averaged frame reaches the output file.
   Here the whole reduction is a single jitted step over ``[frames, L]``
-  blocks — the FFT batch rides the MXU/VPU, and the streaming average is
+  blocks — one batched FFT, and the streaming average is
   an explicit (count, sum) state instead of scheduler plumbing.
 
 - ``fft_peak_detection.py:46-65``: min-shift to non-negative, scipy

@@ -3,7 +3,7 @@
 Replaces the reference's Qt spectrum viewer (util/diag_scope.py:66-68 —
 a GUI flowgraph attached to a live channel via frontend_connector) with
 a terminal renderer fed by the same batched FFT used for scanning, so it
-works over ssh next to a headless TPU host.
+works over ssh next to a headless capture host.
 
     python -m radiocapture_tpu.tools.diag_scope capture.dat \
         --samp-rate 2400000 [--frames 32] [--width 100]

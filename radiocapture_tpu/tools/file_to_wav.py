@@ -58,7 +58,7 @@ def decode_analog(iq: np.ndarray, samp_rate: float, offset_hz: float = 0.0
         return np.zeros(0, np.float32)
     y = _resample_8k(np.concatenate(chunks), pipe.channel_fs)
     # voice band-pass at 8 kHz: the pipeline stopped band-passing per
-    # slot (it's per-call work — PERF.md §11, CallRecorder._to_8k does
+    # slot (it's per-call work — CallRecorder._to_8k does
     # it in the capture path), so the offline chain applies the same
     # 300 Hz HP + 3.4 kHz LP here (reference file_to_wav.py:106-122
     # filters too: CTCSS/PL tones and discriminator DC must not reach
@@ -151,4 +151,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from radiocapture_tpu.utils import compile_cache
+    compile_cache.enable()
     main()

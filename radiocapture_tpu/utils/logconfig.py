@@ -18,7 +18,7 @@ Multiprocess safety: the reference wraps handlers with
 ``multiprocessing_logging`` (overseer.py:56-59); here per-source OS
 workers each call ``setup_logging`` with their own ``log_dir`` (or rely
 on the Supervisor passing ``suffix=worker_name``) so rotating files are
-never shared across processes — the TPU build's workers are few and
+never shared across processes — this build's workers are few and
 long-lived, unlike the reference's per-channel process zoo.
 """
 

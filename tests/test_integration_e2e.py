@@ -3,7 +3,7 @@ pipeline → receive engine → bus → call manager → new_call CDR.
 
 This is the grant→call path of the reference (SURVEY.md §3.2-3.3) driven
 hardware-free from synthetic C4FM, crossing every seam: slot allocation,
-the batched TPU pipeline, dibit compaction, framing/trellis/CRC, IDEN
+the batched device pipeline, dibit compaction, framing/trellis/CRC, IDEN
 resolution, and the call state machine.
 """
 

@@ -270,7 +270,7 @@ def test_dp_tp_step_emits_no_collectives():
     (rc_frontend/receiver.py:67-70). GSPMD auto-partitioning of the
     same step used to re-replicate the conv inputs and modulated taps
     with ~30 MB/block of all-gathers; the shard_map form keeps it
-    clean (full accounting: tools/scaling_model.py, SCALING_r05.json)."""
+    clean (full accounting: tools/scaling_model.py)."""
     import sys
     sys.path.insert(0, "tools")
     import os

@@ -5,8 +5,7 @@ layer and (2) the reference's runnable pure-Python decoders imported
 from /root/reference (p25_general.procTSDU/procHDU/procLDU1/procTLC,
 p25p2_lfsr, edacs_control_demod.bch_decode, moto_control_demod
 .deinterleave + receive_engine parity logic), and asserts identical
-output.  This is the harness VERDICT.md round-1 item #1 asked for: the
-repo's closed-loop encoder/decoder tests cannot see a correlated
+output. The repo's closed-loop encoder/decoder tests cannot see a correlated
 encoder+decoder bug; these can.
 
 Frames are padded to a 72-bit multiple before handing to the reference:

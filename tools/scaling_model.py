@@ -1,14 +1,11 @@
 """Multi-host scaling: HLO-verified collective accounting + model.
 
-Multi-chip hardware is not reachable from this environment, so the
-≥85% scaling-efficiency target (BASELINE.md) is demonstrated the way
-it can be *verified*: compile the production sharded steps for a
-virtual 8-device mesh, inventory every cross-device collective GSPMD
-actually emitted (op kind + shape + bytes, from the partitioned HLO),
-check the inventory against the analytic byte formulas derived from
-the pipeline constants, then evaluate those verified formulas at the
-production shape against the measured single-chip step time and the
-ICI bandwidth.
+Compile the production sharded steps for a virtual 8-device CPU mesh,
+inventory every cross-device collective GSPMD actually emitted (op kind
++ shape + bytes, from the partitioned HLO), check the inventory against
+the analytic byte formulas derived from the pipeline constants, then
+evaluate those formulas at the production shape against a single-device
+step time and the link bandwidth.
 
 Key structural facts this proves (not asserts):
 
@@ -16,15 +13,16 @@ Key structural facts this proves (not asserts):
   to ZERO inter-device collectives — scale-out over sources/slots is
   communication-free on the hot path, exactly like the reference's
   one-process-per-dongle layout (rc_frontend/receiver.py:67-70), so
-  its weak-scaling efficiency is bounded only by the DCN control plane
+  its weak-scaling efficiency is bounded only by the control plane
   (KB/s of JSON presence/events against MB/s-scale links);
 - the **time-sharded step** (`TimeShardedControlStep`) emits exactly
   one halo `collective-permute`, one track-rate `all-to-all`, and the
   block-tail `all-reduce` — whose byte totals match the formulas
   below, giving a strong-scaling efficiency model at production shape.
 
-Usage: python tools/scaling_model.py [--step-ms 18.5] [--ici-gbps 40]
-Prints one JSON line; the PERF.md §8 numbers come from it.
+Usage: python tools/scaling_model.py [--step-ms MS] [--link-gbps 450]
+Prints one JSON line. Without ``--step-ms`` (a measured single-GPU step
+time at the bench shape) the efficiency model is left out.
 """
 
 import argparse
@@ -84,13 +82,13 @@ def collective_inventory(hlo_text: str) -> list[dict]:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--step-ms", type=float, default=18.5,
-                    help="measured single-chip full-step ms at the "
-                         "bench shape (BENCH_r05 median window)")
-    ap.add_argument("--ici-gbps", type=float, default=40.0,
-                    help="assumed effective per-chip ICI bandwidth, "
-                         "GB/s (v5e spec is 4 links x ~50 GB/s; 40 is "
-                         "a conservative single-direction effective)")
+    ap.add_argument("--step-ms", type=float, default=None,
+                    help="measured single-GPU full-step ms at the bench "
+                         "shape")
+    ap.add_argument("--link-gbps", type=float, default=450.0,
+                    help="per-GPU link bandwidth, GB/s each way (H100 "
+                         "SXM NVLink data sheet: 900 GB/s total, 450 "
+                         "each way)")
     args = ap.parse_args()
 
     import jax
@@ -160,7 +158,7 @@ def main():
     # ---- production-shape model
     P_SRC, P_T = 128, T
     prod = fmla(P_SRC, n_t, num_slots, P_T)
-    bw = args.ici_gbps * 1e9
+    bw = args.link_gbps * 1e9
     # per-device strong-scaling costs at n_t-way time sharding: each
     # device sends its halo once, exchanges (n_t-1)/n_t of its a2a
     # share, contributes the tail reduce.
@@ -168,8 +166,10 @@ def main():
     a2a_dev = prod["all-to-all"] * (n_t - 1) / n_t
     tail_dev = prod["all-reduce"]
     comm_ms = (halo_dev + a2a_dev + tail_dev) / bw * 1e3
-    comp_ms = args.step_ms / n_t
-    eff_time = comp_ms / (comp_ms + comm_ms)
+    comp_ms = eff_time = None
+    if args.step_ms is not None:
+        comp_ms = args.step_ms / n_t
+        eff_time = comp_ms / (comp_ms + comm_ms)
 
     print(json.dumps({
         "dp_tp_collectives": inv2,          # expected: []
@@ -182,12 +182,11 @@ def main():
             "sources": P_SRC, "block_samples": P_T,
             "time_shards": n_t,
             "bytes_per_block": prod,
-            "assumed_ici_gbps": args.ici_gbps,
+            "link_gbps": args.link_gbps,
             "measured_step_ms": args.step_ms,
-            "comm_ms_per_device": round(comm_ms, 3),
-            "compute_ms_per_device": round(comp_ms, 3),
-            "strong_scaling_efficiency_time_axis":
-                round(eff_time, 3),
+            "comm_ms_per_device": comm_ms,
+            "compute_ms_per_device": comp_ms,
+            "strong_scaling_efficiency_time_axis": eff_time,
             "weak_scaling_efficiency_dp_axis":
                 1.0 if not inv2 else None,
         },
